@@ -3,30 +3,23 @@
 Workload parity with the reference's published number (BASELINE.md):
 640x480 RGB-D frames, 512^3 TSDF volume over a 3 m cube, 3-level pyramid,
 {4,5,10} ICP iterations — the reference runs ~18 ms/frame on a GTX 1650 Ti
-(README.md:9-10). Prints one JSON line; vs_baseline > 1 means faster than
-the reference.
+(README.md:9-10). Prints the card on one line, then one JSON line;
+vs_baseline > 1 means faster than the reference's published figure.
+
+Needs a GPU: on any other backend it exits non-zero, naming what it found.
 
 Measurement method: the per-frame step runs as a `lax.scan` over a stacked
 frame batch entirely on device, and the reported time is the *difference*
-between a long scan and a short scan divided by the frame-count difference.
-This cancels fixed per-dispatch overhead exactly — required on tunneled /
-remote TPU setups where a single dispatch round-trip (~1 s) would drown the
-~ms device time, and harmless locally. Completion is forced with a host
-fetch of the scan outputs (some experimental PJRT backends return from
-block_until_ready without blocking).
+between a long scan and a short scan divided by the frame-count difference,
+which cancels the fixed per-dispatch overhead. Each scan ends in
+`jax.block_until_ready`.
 
 Both scan lengths start from a FRESH init_state and replay the same orbit
-from frame 0, so every measured frame is a genuinely tracking frame (the
-r3 harness replayed frames onto a continuing state, which silently relied
-on auto-reset at the replay discontinuity). On tracking failure the
-per-frame ok/inlier trace is printed before exiting non-zero, and the
-dispatch-mode knobs are exposed as flags for hardware bisection
-(tools/hw_bisect.py is the finer-grained companion).
+from frame 0, so every measured frame is a genuinely tracking frame. On
+tracking failure the per-frame ok/inlier trace is printed before exiting
+non-zero.
 
-Usage: python bench.py [--dim 512] [--frames 20] [--fused auto|on|off]
-                       [--integrate auto|warped|gather]
-                       [--raycast auto|warped|hier|step]
-                       [--icp auto|warped|gather]
+Usage: python bench.py [--dim 512] [--frames 20] [--raycast auto|hier|step]
 """
 
 from __future__ import annotations
@@ -40,19 +33,19 @@ import numpy as np
 
 
 def _run_scan(scan_fn, init_fn, depths, colors):
-    """Run the scanned pipeline from fresh state; force completion via
-    host fetch. Returns (poses, oks, inliers, seconds)."""
+    """Run the scanned pipeline from fresh state. Returns (poses, oks,
+    inliers, seconds)."""
+    import jax
+
     state = init_fn()
     t0 = time.perf_counter()
-    state, (poses, oks, inl) = scan_fn(state, depths, colors)
-    poses = np.asarray(poses)  # host fetch == hard sync
-    oks = np.asarray(oks)
-    inl = np.asarray(inl)
+    state, outs = jax.block_until_ready(scan_fn(state, depths, colors))
     dt = time.perf_counter() - t0
+    poses, oks, inl = (np.asarray(x) for x in outs)
     return poses, oks, inl, dt
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--dim", type=int, default=512)
     ap.add_argument("--frames", type=int, default=20)
@@ -60,46 +53,30 @@ def main():
     ap.add_argument("--width", type=int, default=640)
     ap.add_argument("--height", type=int, default=480)
     ap.add_argument("--levels", type=int, default=3)
-    ap.add_argument("--fused", default="auto", choices=["auto", "on", "off"])
-    ap.add_argument(
-        "--integrate", default="auto", choices=["auto", "warped", "gather"]
-    )
-    ap.add_argument(
-        "--raycast", default="auto", choices=["auto", "warped", "hier", "step"]
-    )
-    ap.add_argument("--icp", default="auto", choices=["auto", "warped", "gather"])
-    ap.add_argument(
-        "--corner",
-        action="store_true",
-        help="yaw the orbit ~50 deg so every frame's frustum straddles the "
-        "+z/+x cube edge and the fused step takes the multi-face CHAIN "
-        "branch — measures the rare-branch latency "
-        "(tools/hw_bisect.py --corner is the correctness probe)",
-    )
-    args = ap.parse_args()
+    ap.add_argument("--raycast", default="auto", choices=["auto", "hier", "step"])
+    args = ap.parse_args(argv)
+
+    from kinfu_tpu.utils.device import card_label, require_gpu
+
+    devs = require_gpu()
+    label = card_label()
+    print(f"device: {devs[0].device_kind} x{len(devs)} | nvidia-smi: {label}")
 
     import jax
     import jax.numpy as jnp
-
-    try:
-        jax.config.update("jax_compilation_cache_dir", "/tmp/kinfu_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
 
     from kinfu_tpu.config import KinFuParams
     from kinfu_tpu.data.synthetic import default_test_scene, make_orbit_trajectory
     from kinfu_tpu.geometry.intrinsics import Intrinsics
     from kinfu_tpu.pipeline.kinfu import init_state, kinfu_step
+    from kinfu_tpu.utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     params = KinFuParams(
         pyramid_height=args.levels,
         icp_iters=(4, 5, 10)[: args.levels],
         volume_dims=(args.dim, args.dim, args.dim),
-        fused_mode=args.fused,
-        integrate_mode=args.integrate,
         raycast_mode=args.raycast,
-        icp_mode=args.icp,
     )
     intr = Intrinsics(
         width=args.width,
@@ -112,13 +89,7 @@ def main():
 
     n_small, n_big = args.warmup, args.warmup + args.frames
     traj = make_orbit_trajectory(n_big, angle_step_deg=0.3)
-    if args.corner:
-        from kinfu_tpu.data.synthetic import corner_test_scene, yaw_trajectory
-
-        scene = corner_test_scene()
-        traj = yaw_trajectory(traj)
-    else:
-        scene = default_test_scene()
+    scene = default_test_scene()
     rendered = [scene.render_frame(T, intr) for T in traj]
     depths = jnp.asarray(np.stack([d for d, _ in rendered]))
     colors = jnp.asarray(np.stack([c for _, c in rendered]))
@@ -159,11 +130,16 @@ def main():
     print(
         json.dumps(
             {
-                "metric": f"ms_per_frame_{args.width}x{args.height}_{args.dim}^3"
-                + ("_corner" if args.corner else ""),
-                "value": round(ms, 3),
+                "metric": f"ms_per_frame_{args.width}x{args.height}_{args.dim}^3",
+                "value": ms,
                 "unit": "ms",
-                "vs_baseline": round(baseline_ms / ms, 3),
+                "vs_baseline": baseline_ms / ms,
+                "device": {
+                    "platform": devs[0].platform,
+                    "kind": devs[0].device_kind,
+                    "count": len(devs),
+                    "nvidia_smi": label,
+                },
             }
         )
     )

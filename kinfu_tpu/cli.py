@@ -303,20 +303,10 @@ def cmd_bench(args) -> int:
     return 0
 
 
-def _enable_compile_cache() -> None:
-    """Persistent XLA compilation cache — first compile of the 512^3 step
-    is minutes on a remote TPU; cached reruns are seconds."""
-    try:
-        import jax
-
-        jax.config.update("jax_compilation_cache_dir", "/tmp/kinfu_jax_cache")
-        jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
-    except Exception:
-        pass
-
-
 def main(argv=None) -> int:
-    _enable_compile_cache()
+    from kinfu_tpu.utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
     ap = argparse.ArgumentParser(prog="kinfu_tpu")
     sub = ap.add_subparsers(dest="cmd", required=True)
 

@@ -11,7 +11,7 @@ from __future__ import annotations
 import glob
 import os
 import re
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -59,3 +59,34 @@ class BundledDataset:
     def frames(self) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
         for i in range(len(self)):
             yield self[i]
+
+
+def write_bundled(
+    root: str,
+    frames: Sequence[Tuple[np.ndarray, np.ndarray]],
+    intr: Intrinsics,
+    gt_poses: Optional[Sequence[np.ndarray]] = None,
+) -> None:
+    """Write (depth raw millimetres [H,W], color u8 [H,W,3]) frames in the
+    layout above, with intr.txt (5th value 1000 depth units per metre) and,
+    when given, gt_poses.txt: world-from-camera 4x4 per frame in the
+    reference's doc/poses.txt format, normalised so frame 0 is identity
+    (the tracker's frame)."""
+    from kinfu_tpu.io.images import write_color_png, write_depth_png
+    from kinfu_tpu.io.poses import write_poses_reference_format
+
+    os.makedirs(os.path.join(root, "color"), exist_ok=True)
+    os.makedirs(os.path.join(root, "depth"), exist_ok=True)
+    for i, (depth_raw, color) in enumerate(frames):
+        write_depth_png(
+            os.path.join(root, "depth", f"{i:06d}.png"),
+            np.round(depth_raw).astype(np.uint16),
+        )
+        write_color_png(os.path.join(root, "color", f"{i:06d}.png"), color)
+    with open(os.path.join(root, "intr.txt"), "w") as f:
+        f.write(f"{intr.fx} {intr.cx} {intr.fy} {intr.cy} 1000.0\n")
+    if gt_poses is not None:
+        T0inv = np.linalg.inv(gt_poses[0])
+        write_poses_reference_format(
+            os.path.join(root, "gt_poses.txt"), [T0inv @ T for T in gt_poses]
+        )

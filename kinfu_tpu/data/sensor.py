@@ -10,7 +10,7 @@ same surface is a runtime-pluggable interface:
   - SyntheticSensor: renders an analytic scene along a trajectory (test /
     bench backend; no reference equivalent)
   - Live Kinect/RealSense backends require their vendor SDKs, which do not
-    exist on a TPU host; `open_sensor("kinect2"|"realsense")` raises a
+    are not installed here; `open_sensor("kinect2"|"realsense")` raises a
     clear error pointing at the dataset replay path instead
     (depth_sensor.cpp:48-131 is the reference's host-side implementation).
 """

@@ -208,39 +208,3 @@ def make_orbit_trajectory(
         T[:3, 3] = target - R @ target
         poses.append(T.astype(np.float32))
     return poses
-
-
-def corner_test_scene(yaw_deg: float = 50.0) -> "SyntheticScene":
-    """A trackable scene centred on the +z/+x cube-edge direction.
-
-    Pairs with `yaw_trajectory`: a camera yawed `yaw_deg` about y sees a
-    sphere + two tilted planes along that direction, all inside the
-    default 3 m volume — the frustum straddles the +z/+x cube edge, so the
-    fused step's multi-face CHAIN branch runs every frame
-    (ops/fused_step.py branch 6; tools/hw_bisect.py --corner)."""
-    a = np.deg2rad(yaw_deg)
-    d = np.array([np.sin(a), 0.0, np.cos(a)])
-    back_n = -d + np.array([0.1, 0.05, 0.0])
-    back_n = back_n / np.linalg.norm(back_n)
-    floor_n = np.array([0.05, -1.0, 0.1])
-    floor_n = floor_n / np.linalg.norm(floor_n)
-    return SyntheticScene(
-        [
-            sphere(center=d * 1.4 + np.array([0.0, -0.1, 0.0]), radius=0.4),
-            plane(point=d * 2.4, normal=back_n),
-            plane(point=np.array([0.0, 0.5, 0.0]), normal=floor_n),
-        ]
-    )
-
-
-def yaw_trajectory(
-    traj: List[np.ndarray], yaw_deg: float = 50.0
-) -> List[np.ndarray]:
-    """Yaw every pose of a trajectory about the camera y axis."""
-    a = np.deg2rad(yaw_deg)
-    Ry = np.eye(4, dtype=np.float32)
-    Ry[:3, :3] = np.array(
-        [[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]],
-        np.float32,
-    )
-    return [T @ Ry for T in traj]

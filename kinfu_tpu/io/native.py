@@ -4,7 +4,7 @@ The reference leans on OpenCV's C++ imread/PLY machinery
 (depth_sensor.cpp:190-192, kinectfusion.cpp:148-166); the equivalent here is
 a small zlib-based C++ PNG codec + PLY writer built by native/Makefile.
 Falls back gracefully (available() == False) when the library isn't built —
-callers then use PIL/numpy paths.
+callers then use the standard-library codec in kinfu_tpu/io/images.py.
 """
 
 from __future__ import annotations

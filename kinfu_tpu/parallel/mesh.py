@@ -1,10 +1,11 @@
 """Device mesh setup and sharding specs.
 
 The reference is strictly single-GPU (SURVEY.md section 2, parallelism
-inventory); this module is the scaling layer the north-star config requires:
-the TSDF volume block-shards along Z across a 1-D mesh axis ``"z"`` and all
-cross-device communication is XLA collectives over ICI (psum / ppermute /
-pmin), never host transfers.
+inventory); this module is the scaling layer: the TSDF volume block-shards
+along Z across a 1-D mesh axis ``"z"`` and all cross-device communication is
+XLA collectives (psum / ppermute / pmin), never host transfers. The cards of
+one host reach each other all to all, so the mesh follows the algorithm and
+stays 1-D.
 """
 
 from __future__ import annotations
@@ -29,12 +30,9 @@ def make_mesh(n_shards: Optional[int] = None, devices: Optional[Sequence] = None
     return Mesh(np.asarray(devices[:n_shards]), (VOLUME_AXIS,))
 
 
-def volume_sharding(mesh: Mesh, shard_dim: int = 0) -> NamedSharding:
-    """[Z, Y, X] volume arrays shard along dim `shard_dim` (0 = Z,
-    1 = Y — see parallel/sharded.py for the load-balance trade-off)."""
-    spec = [None, None, None]
-    spec[shard_dim] = VOLUME_AXIS
-    return NamedSharding(mesh, P(*spec))
+def volume_sharding(mesh: Mesh) -> NamedSharding:
+    """[Z, Y, X] volume arrays shard along Z."""
+    return NamedSharding(mesh, P(VOLUME_AXIS, None, None))
 
 
 def replicated(mesh: Mesh) -> NamedSharding:

@@ -6,21 +6,19 @@ parallelism for eval sweeps") — no reference equivalent (the reference is a
 single interactive binary, main.cpp:64-101). One jitted program runs
 `kinfu_step` as a `lax.scan` over frames inside a `shard_map` over the
 "replica" mesh axis, so an 8-device host evaluates 8 sequences in the wall
-time of one; on a TPU pod the same code fans across chips. Configs change
+time of one. Configs change
 static shapes, so a sweep over configs is a serial loop of (cached) jitted
 programs; sequences within one config share a single compile.
 """
 
 from __future__ import annotations
 
-import functools
 from typing import List, Sequence, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 from jax.sharding import Mesh, PartitionSpec as P
-from jax.experimental.shard_map import shard_map
 
 from kinfu_tpu.config import KinFuParams
 from kinfu_tpu.geometry.intrinsics import Intrinsics
@@ -72,12 +70,12 @@ def track_replicated(
             lambda dc: _track_one(dc[0], dc[1], params, intr), (d, c)
         )
 
-    fn = shard_map(
+    fn = jax.shard_map(
         local,
         mesh=mesh,
         in_specs=(P(REPLICA_AXIS), P(REPLICA_AXIS)),
         out_specs=(P(REPLICA_AXIS), P(REPLICA_AXIS)),
-        check_rep=False,
+        check_vma=False,
     )
     poses, oks = jax.jit(fn)(depths, colors)
     return np.asarray(poses), np.asarray(oks)

@@ -83,41 +83,32 @@ def kinfu_step(
     relocalize_step) can try to re-acquire the existing map instead.
 
     Structure note: the TSDF volume passes through exactly ONE lax.cond.
-    XLA stages conditional operands/results through fresh buffers, so every
-    conditional layer wrapping the 1.5 GB volume costs full-volume copies
-    (~4 ms each at 512^3, measured r3 — the original bootstrap/track +
-    ok/fail nesting cost ~15 ms/frame of pure staging). Bootstrap therefore
-    merges into the main path: ICP runs every frame (on frame 1 the model
-    maps are zero, which the correspondence mask rejects — its result is
-    discarded), and the small per-frame selects (pose, maps) use
-    jnp.where."""
+    XLA may stage conditional operands and results through fresh buffers,
+    so every conditional layer wrapping the volume risks full-volume
+    copies. Bootstrap therefore merges into the main path: ICP runs every
+    frame (on frame 1 the model maps are zero, which the correspondence
+    mask rejects — its result is discarded), and the small per-frame
+    selects (pose, maps) use jnp.where."""
     vol_pose = _volume_pose(params)
 
-    dmaps, vmaps, nmaps = build_measurement_pyramid(
-        depth_mm,
-        intr,
-        pyramid_height=params.pyramid_height,
-        bfilter_kernel_size=params.bfilter_kernel_size,
-        bfilter_color_sigma=params.bfilter_color_sigma,
-        bfilter_spatial_sigma=params.bfilter_spatial_sigma,
-        depth_scale=params.depth_scale,
-        max_dist=params.dfilter_dist,
-        normal_disc_threshold=params.normal_disc_threshold,
-    )
-    # Materialize the measurement pyramid as real buffers before anything
-    # downstream (Pallas ICP, the fused switch) consumes it: without the
-    # barrier XLA:TPU mis-schedules/fuses the normal-map computation in
-    # programs containing the fused switch and the maps read back as
-    # zeros on hardware (tools/PERF_NOTES.md "fused-step masking
-    # miscompile"). Zero runtime cost — it only pins program order.
-    dmaps, vmaps, nmaps = jax.lax.optimization_barrier(
-        (tuple(dmaps), tuple(vmaps), tuple(nmaps))
-    )
+    with jax.named_scope("measure"):
+        dmaps, vmaps, nmaps = build_measurement_pyramid(
+            depth_mm,
+            intr,
+            pyramid_height=params.pyramid_height,
+            bfilter_kernel_size=params.bfilter_kernel_size,
+            bfilter_color_sigma=params.bfilter_color_sigma,
+            bfilter_spatial_sigma=params.bfilter_spatial_sigma,
+            depth_scale=params.depth_scale,
+            max_dist=params.dfilter_dist,
+            normal_disc_threshold=params.normal_disc_threshold,
+        )
 
     is_first = state.frame_count == 1
-    icp = rigid_icp(
-        vmaps, nmaps, state.model_vmaps, state.model_nmaps, intr, params
-    )
+    with jax.named_scope("icp"):
+        icp = rigid_icp(
+            vmaps, nmaps, state.model_vmaps, state.model_nmaps, intr, params
+        )
     good = icp.ok & ~is_first | is_first
 
     # frame 1 fuses at the held pose (kinectfusion.cpp:84-93); tracked
@@ -127,71 +118,34 @@ def kinfu_step(
         lambda a, b: jnp.where(is_first, a, b), state.pose, tracked_pose
     )
 
-    from kinfu_tpu.ops.fused_step import fused_supported, fused_update
-
     vol2cam = compose(inverse(new_pose), vol_pose)
     cam2vol = compose(inverse(vol_pose), new_pose)
-    if fused_supported(state.vol.tsdf.shape, params):
-        # integrate + raycast + failure handling in ONE lax.switch — the
-        # volume crosses a single conditional boundary (see ops/fused_step).
-        # Every array consumed after the switch is threaded THROUGH it as
-        # `aux` — buffers merely live across the switch get clobbered by an
-        # XLA:TPU buffer-assignment bug (fused_update docstring).
-        aux = (vmaps, nmaps)
-        if not auto_reset:
-            aux = aux + (state.model_vmaps, state.model_nmaps)
-        vol_n, rv, rn, aux = fused_update(
-            state.vol,
-            dmaps[0],
-            color_rgb,
-            vol2cam,
-            cam2vol,
-            intr,
-            params,
-            good,
-            reset_on_fail=auto_reset,
-            aux=aux,
-        )
-        vmaps_t, nmaps_t = aux[0], aux[1]
-        mv, mn = _model_pyramid(rv, rn, params.pyramid_height)
-        mv = tuple(jnp.where(is_first, a, b) for a, b in zip(vmaps_t, mv))
-        mn = tuple(jnp.where(is_first, a, b) for a, b in zip(nmaps_t, mn))
-        if not auto_reset:
-            # failure keeps the old prediction maps for the relocalizer
-            mv = tuple(
-                jnp.where(good, a, b) for a, b in zip(mv, aux[2])
-            )
-            mn = tuple(
-                jnp.where(good, a, b) for a, b in zip(mn, aux[3])
-            )
-    else:
 
-        def fuse(vol):
+    def fuse(vol):
+        with jax.named_scope("integrate"):
             vol = integrate(vol, dmaps[0], color_rgb, vol2cam, intr, params)
+        with jax.named_scope("raycast"):
             rv, rn = raycast(vol, cam2vol, intr, params)
+        with jax.named_scope("model_pyramid"):
             mv, mn = _model_pyramid(rv, rn, params.pyramid_height)
-            # frame 1 seeds the model with the measurement — no raycast
-            # output is used (the raycast above is wasted work on that one
-            # frame; branching on it would re-wrap the volume in another
-            # conditional)
-            mv = tuple(
-                jnp.where(is_first, a, b) for a, b in zip(vmaps, mv)
-            )
-            mn = tuple(
-                jnp.where(is_first, a, b) for a, b in zip(nmaps, mn)
-            )
-            return vol, mv, mn
+        # frame 1 seeds the model with the measurement — no raycast
+        # output is used (the raycast above is wasted work on that one
+        # frame; branching on it would re-wrap the volume in another
+        # conditional)
+        mv = tuple(jnp.where(is_first, a, b) for a, b in zip(vmaps, mv))
+        mn = tuple(jnp.where(is_first, a, b) for a, b in zip(nmaps, mn))
+        return vol, mv, mn
 
-        def fail(vol):
-            if auto_reset:
-                return (
-                    reset_volume(vol),
-                    tuple(jnp.zeros_like(v) for v in state.model_vmaps),
-                    tuple(jnp.zeros_like(n) for n in state.model_nmaps),
-                )
-            return vol, state.model_vmaps, state.model_nmaps
+    def fail(vol):
+        if auto_reset:
+            return (
+                reset_volume(vol),
+                tuple(jnp.zeros_like(v) for v in state.model_vmaps),
+                tuple(jnp.zeros_like(n) for n in state.model_nmaps),
+            )
+        return vol, state.model_vmaps, state.model_nmaps
 
-        vol_n, mv, mn = jax.lax.cond(good, fuse, fail, state.vol)
+    vol_n, mv, mn = jax.lax.cond(good, fuse, fail, state.vol)
 
     if auto_reset:
         fail_pose = identity_pose()

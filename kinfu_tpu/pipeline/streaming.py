@@ -109,58 +109,24 @@ def streaming_step(
 
     vol2cam = compose(inverse(new_pose), vol_pose)
     cam2vol = compose(inverse(vol_pose), new_pose)
-    from kinfu_tpu.ops.fused_step import fused_supported, fused_update
-    from kinfu_tpu.volume.stream import _shift_axis
 
-    if fused_supported(ks.vol.tsdf.shape, params):
-        # grid shift + integrate + raycast + failure reset all ride the ONE
-        # lax.switch of fused_update (the shift enters as its `pre` hook) —
-        # the volume crosses a single conditional boundary, same structure
-        # note as pipeline.kinfu.kinfu_step
-        def pre(arrs):
-            out = []
-            for a in arrs:
-                for axis_arr, comp in ((2, 0), (1, 1), (0, 2)):
-                    a = _shift_axis(a, shift[comp], axis_arr)
-                out.append(a)
-            return tuple(out)
-
-        # post-switch consumers thread through `aux` (see fused_update)
-        vol_n, rv, rn, aux = fused_update(
-            ks.vol,
-            dmaps[0],
-            color_rgb,
-            vol2cam,
-            cam2vol,
-            intr,
-            params,
-            good,
-            pre=pre,
-            aux=(vmaps, nmaps),
-        )
-        vmaps_t, nmaps_t = aux
+    def fuse(vol):
+        vol = shift_volume(vol, shift)
+        vol = integrate(vol, dmaps[0], color_rgb, vol2cam, intr, params)
+        rv, rn = raycast(vol, cam2vol, intr, params)
         mv, mn = _model_pyramid(rv, rn, params.pyramid_height)
-        mv = tuple(jnp.where(is_first, a, b) for a, b in zip(vmaps_t, mv))
-        mn = tuple(jnp.where(is_first, a, b) for a, b in zip(nmaps_t, mn))
-    else:
+        mv = tuple(jnp.where(is_first, a, b) for a, b in zip(vmaps, mv))
+        mn = tuple(jnp.where(is_first, a, b) for a, b in zip(nmaps, mn))
+        return vol, mv, mn
 
-        def fuse(vol):
-            vol = shift_volume(vol, shift)
-            vol = integrate(vol, dmaps[0], color_rgb, vol2cam, intr, params)
-            rv, rn = raycast(vol, cam2vol, intr, params)
-            mv, mn = _model_pyramid(rv, rn, params.pyramid_height)
-            mv = tuple(jnp.where(is_first, a, b) for a, b in zip(vmaps, mv))
-            mn = tuple(jnp.where(is_first, a, b) for a, b in zip(nmaps, mn))
-            return vol, mv, mn
+    def fail(vol):
+        return (
+            reset_volume(vol),
+            tuple(jnp.zeros_like(v) for v in ks.model_vmaps),
+            tuple(jnp.zeros_like(n) for n in ks.model_nmaps),
+        )
 
-        def fail(vol):
-            return (
-                reset_volume(vol),
-                tuple(jnp.zeros_like(v) for v in ks.model_vmaps),
-                tuple(jnp.zeros_like(n) for n in ks.model_nmaps),
-            )
-
-        vol_n, mv, mn = jax.lax.cond(good, fuse, fail, ks.vol)
+    vol_n, mv, mn = jax.lax.cond(good, fuse, fail, ks.vol)
 
     pose_n = jax.tree.map(
         lambda a, b: jnp.where(good, a, b), new_pose, identity_pose()

@@ -3,7 +3,7 @@
 The reference's main display is a live cv::viz 3D window showing the
 extracted cloud, the volume cube and the camera frustum, refreshed every
 5th frame (main.cpp:82-86; golden image doc/3D.png). An interactive window
-is pointless on a headless TPU host, so this renders the same content
+is pointless on a headless accelerator host, so this renders the same content
 OFFLINE: a z-buffered point splat of the extracted (optionally coloured)
 cloud, the volume cube wireframe, the trajectory polyline and the current
 camera frustum, projected from a configurable viewpoint into a PNG-able

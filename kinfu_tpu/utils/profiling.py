@@ -6,11 +6,8 @@ The reference's only instrumentation is a wall-clock cout per frame
   - `trace(logdir)`: context manager around jax.profiler.trace — produces
     an XProf/Perfetto trace of the device timeline viewable in
     TensorBoard.
-  - `device_time(fn, *args)`: wall-clock of one call with a hard host
-    fetch (some experimental PJRT backends return from block_until_ready
-    early, so fetching bytes is the only reliable fence).
-  - scan-difference timing is in tools/stagebench.py; this module keeps
-    only the primitives the session/CLI use.
+  - `device_time(fn, *args)`: best-of-reps wall-clock of one call, ended
+    by `jax.block_until_ready`.
 """
 
 from __future__ import annotations
@@ -18,8 +15,6 @@ from __future__ import annotations
 import contextlib
 import time
 from typing import Any, Callable, Tuple
-
-import numpy as np
 
 
 @contextlib.contextmanager
@@ -33,24 +28,15 @@ def trace(logdir: str):
         jax.profiler.stop_trace()
 
 
-def _force(x: Any) -> None:
-    """Hard synchronisation: fetch one leaf to the host."""
+def device_time(fn: Callable, *args, reps: int = 3) -> Tuple[float, Any]:
+    """Best-of-reps wall seconds for fn(*args), each ended by
+    `jax.block_until_ready`. Returns (seconds, last_result)."""
     import jax
 
-    leaves = jax.tree.leaves(x)
-    if leaves:
-        np.asarray(leaves[0])
-
-
-def device_time(fn: Callable, *args, reps: int = 3) -> Tuple[float, Any]:
-    """Best-of-reps wall seconds for fn(*args), hard-synced. Returns
-    (seconds, last_result)."""
-    out = fn(*args)
-    _force(out)  # warmup / compile
+    out = jax.block_until_ready(fn(*args))  # warmup / compile
     best = float("inf")
     for _ in range(reps):
         t0 = time.perf_counter()
-        out = fn(*args)
-        _force(out)
+        out = jax.block_until_ready(fn(*args))
         best = min(best, time.perf_counter() - t0)
     return best, out

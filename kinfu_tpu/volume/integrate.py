@@ -1,10 +1,12 @@
 """TSDF fusion (integrate) — jnp reference implementation.
 
 One functional pass over the volume per frame: every voxel projects into the
-depth map (a ~1.2 MB image that lives comfortably in VMEM on TPU), reads its
+depth map (a ~1.2 MB image, small enough to stay cache-resident), reads its
 depth, and folds the new truncated SDF observation into the running weighted
 average. Processing is a `lax.scan` over Z-chunks so XLA keeps intermediates
-at chunk size instead of materialising 512^3 float temporaries.
+at chunk size instead of materialising 512^3 float temporaries, and can fuse
+each chunk's projection, gather and update into one loop — the reference's
+own per-voxel design.
 
 Math parity with device::integrate (tsdf_volume.cu:41-110):
   - voxel world position = index * voxel_size  (corner convention, :49)
@@ -15,10 +17,6 @@ Math parity with device::integrate (tsdf_volume.cu:41-110):
     (already-incremented) weight convention (:82-96)
 Divergence: the reference never touches the z=0 slab (its z loop starts at 1,
 :52-56); here all slabs integrate. Recorded in DIVERGENCES.md.
-
-A Pallas kernel (kinfu_tpu/ops/pallas_integrate.py) implements the same
-update with the depth/color images pinned in VMEM; this jnp version is the
-correctness reference and the CPU/test path.
 """
 
 from __future__ import annotations
@@ -54,50 +52,15 @@ def integrate(
     intr: Intrinsics,
     params: KinFuParams,
     z_offset: jnp.ndarray | int = 0,
-    shard_dim: int = 0,
 ) -> TSDFVolume:
     """Fuse one (depth [H,W] metres, color [H,W,3] u8) observation.
 
     `vol2cam` maps volume coordinates to the camera frame
     (camera_pose^-1 * volume_pose, tsdf_volume.cpp:50). `z_offset` is the
-    global index of vol's first slab along the sharded NATURAL array dim
-    `shard_dim` (0 = volume Z, 1 = volume Y) — nonzero when `vol` is one
-    shard of a mesh-distributed volume (kinfu_tpu/parallel/): integration
-    is embarrassingly parallel across shards.
-
-    Dispatches on `params.integrate_mode`: the separable face-warp Pallas
-    kernel when requested (and the shape supports it), else the per-voxel
-    gather below.
+    global Z index of vol's first slab — nonzero when `vol` is one shard
+    of a mesh-distributed volume (kinfu_tpu/parallel/): integration is
+    embarrassingly parallel across shards.
     """
-    mode = params.integrate_mode
-    if mode == "auto":
-        mode = "warped" if jax.default_backend() == "tpu" else "gather"
-    # the multi-face sweeps permute the volume axes; warp_dims_ok checks
-    # the tiling constraints of every face's PRIMED shape (so non-cubic
-    # volumes fall back cleanly instead of tripping a trace-time assert)
-    from kinfu_tpu.ops.facewarp import warp_dims_ok
-
-    if mode == "warped" and warp_dims_ok(vol.tsdf.shape, shard_dim or None):
-        from kinfu_tpu.ops.pallas_integrate import integrate_warped
-
-        # A shard fuses in its LOCAL frame: global voxel position is
-        # p_local + offset along the sharded axis, and every quantity in
-        # the sweep depends on p - camera_centre only, so shifting the
-        # camera by the shard origin makes the local sweep exactly the
-        # global one. Axis column: volume z = array dim 0 -> xyz axis 2;
-        # volume y = array dim 1 -> xyz axis 1.
-        xyz_axis = 2 - shard_dim
-        if not (isinstance(z_offset, int) and z_offset == 0):
-            off_m = (
-                jnp.asarray(z_offset, jnp.float32)
-                * params.voxel_size[xyz_axis]
-            )
-            R0, t0 = vol2cam
-            vol2cam = Pose(R0, t0 + R0[:, xyz_axis] * off_m)
-        return integrate_warped(
-            vol, depth_m, color_rgb, vol2cam, intr, params,
-            shard_dim=shard_dim or None,
-        )
     Z, Y, X = vol.tsdf.shape
     h, w = depth_m.shape
     vsx, vsy, vsz = params.voxel_size
@@ -117,9 +80,6 @@ def integrate(
     zz_local = jax.lax.broadcasted_iota(jnp.float32, (cz, Y, X), 0) * vsz
 
     z_offset = jnp.asarray(z_offset, dtype=jnp.int32)
-    if shard_dim == 1:  # Y-sharded: offset shifts the row coordinate
-        yy = yy + z_offset.astype(jnp.float32) * vsy
-        z_offset = jnp.asarray(0, jnp.int32)
 
     def chunk_update(args):
         tsdf_c, weight_c, color_c, z0 = args

@@ -35,7 +35,6 @@ from typing import NamedTuple, Tuple
 
 import jax
 import jax.numpy as jnp
-import numpy as np
 
 from kinfu_tpu.config import KinFuParams
 from kinfu_tpu.geometry.se3 import Pose
@@ -204,7 +203,7 @@ def march_chunked(
     chunk: int = 64,
 ) -> MarchResult:
     """Chunked lockstep march — identical events to `march`, restructured
-    for TPU throughput.
+    into fewer, larger loop iterations.
 
     `march` issues one [H, W] gather per step (~hundreds of tiny gathers
     per frame, each a separate loop iteration). Here each while_loop
@@ -287,9 +286,7 @@ def build_occupancy(tsdf: jnp.ndarray, block: int = 8) -> jnp.ndarray:
     """
     Z, Y, X = tsdf.shape
     b = block
-    # staged axis-by-axis pooling, minor dim first: the one-shot 6D
-    # reshape+reduce_min costs a ~14.7 ms relayout on XLA:TPU at 512^3,
-    # the staged form 0.63 ms (see ops/pallas_raycast.py work-list note)
+    # staged axis-by-axis pooling, minor dim first
     m = tsdf.reshape(Z, Y, X // b, b).min(axis=3)
     m = m.reshape(Z, Y // b, b, X // b).min(axis=2)
     min_f = m.reshape(Z // b, b, Y // b, X // b).min(axis=1)
@@ -311,18 +308,19 @@ def march_hier(
     """Two-level lockstep march: DDA over coarse cells, fine steps only
     inside cells that can hold a crossing.
 
-    Same events as `march` up to sub-step sampling phase: fine sampling
-    inside an occupied cell starts two steps before the cell entry (so the
-    `f_prev` sample for a boundary-straddling crossing lands in the already
-    skipped cell), which shifts the sample grid by a fraction of a step
-    relative to `march`'s global grid. Hit/backface classification and the
-    crossing *interval* are identical; the refined `hit_t` may differ by
-    O(step).
+    Fine sampling inside an occupied cell starts two steps before the cell
+    entry (so the `f_prev` sample for a boundary-straddling crossing lands
+    in the already skipped cell), which shifts the sample grid by a
+    fraction of a step relative to `march`'s global grid. On observed
+    surfaces the refined `hit_t` then differs from `march` by O(step).
+    Where unobserved voxels (stored as 0) interleave with observed ones,
+    the shifted samples read other voxels and the hit/no-hit decision can
+    differ: about 3 % of pixels at 64^3-256^3 after five frames of the
+    synthetic orbit, against `march` and the float64 reference alike.
 
-    Every iteration issues exactly ONE gather (the dominant cost on TPU:
-    ~7-13 ns/element regardless of batching, tools/PERF_NOTES.md) from a
-    combined fine+coarse table: coarse-mode rays read their cell's
-    occupancy word, fine-mode rays read their voxel. Skipping cuts the
+    Every iteration issues exactly ONE gather from a combined fine+coarse
+    table: coarse-mode rays read their cell's occupancy word, fine-mode
+    rays read their voxel. Skipping cuts the
     lockstep iteration count from O(diagonal/step) to
     O(diagonal/(block*voxel)) + O(occupied cells crossed).
     """
@@ -468,13 +466,7 @@ def shade(
     inv_vs = jnp.array([1.0 / vsx, 1.0 / vsy, 1.0 / vsz], dtype=jnp.float32)
     delta = jnp.array([vsx, vsy, vsz], dtype=jnp.float32) * 0.5
 
-    # clamp-then-multiply, not `jnp.where(hit_mask, hit_t, 0.0)` — the
-    # select-with-zero form miscompiles on XLA:TPU in programs containing
-    # the face-dispatch switch (tools/PERF_NOTES.md "fused-step masking
-    # miscompile"); hit_t is clamped finite so the forms are identical
-    t_safe = jnp.minimum(hit_t, jnp.float32(1e30)) * hit_mask.astype(
-        jnp.float32
-    )
+    t_safe = jnp.where(hit_mask, hit_t, 0.0)
     vertex = org[None, None, :] + dirs * t_safe[..., None]
 
     def axis_grad(axis):
@@ -519,30 +511,14 @@ def raycast(
     tnear, tfar = ray_aabb(org, dirs, box_max)
     t_start = jnp.maximum(tnear, 0.0) + step
 
-    # Gather cost on TPU is ~7-13 ns/element no matter how it is phrased
-    # (tools/PERF_NOTES.md), so the only lever is issuing FEWER samples:
-    # march_hier skips coarse cells that cannot hold a crossing (one
-    # DDA iteration per empty 8^3 cell instead of `block` fine steps).
-    # The chunked variant (big [H,W,C] gathers) measured ~40% slower than
-    # stepwise and stays available for tests only.
+    # march_hier skips coarse cells that cannot hold a crossing (one DDA
+    # iteration per empty 8^3 cell instead of `block` fine steps); `step`
+    # is the reference-semantics march on the global sample grid.
     block = 8
     mode = params.raycast_mode
-    from kinfu_tpu.ops.facewarp import warp_dims_ok
-
-    warp_ok = warp_dims_ok(vol.tsdf.shape)
-    if mode == "warped" and not warp_ok:
-        mode = "auto"  # untileable volume: fall back cleanly (tests/test_dispatch.py)
     if mode == "auto":
-        if jax.default_backend() == "tpu" and warp_ok:
-            mode = "warped"
-        elif Z % block == 0 and Y % block == 0 and X % block == 0:
-            mode = "hier"
-        else:
-            mode = "step"
-    if mode == "warped":
-        from kinfu_tpu.ops.pallas_raycast import raycast_warped
-
-        return raycast_warped(vol, cam2vol, intr, params)
+        divisible = Z % block == 0 and Y % block == 0 and X % block == 0
+        mode = "hier" if divisible else "step"
     if mode == "hier":
         occ = build_occupancy(vol.tsdf, block)
         res = march_hier(

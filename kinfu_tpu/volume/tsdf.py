@@ -1,15 +1,14 @@
 """TSDF volume state: a pure pytree of dense arrays.
 
-Layout is [Z, Y, X] with X innermost (TPU lane dimension; X is a multiple of
-128 for standard sizes) and Z outermost so the volume shards/streams along Z.
+Layout is [Z, Y, X] with X innermost (contiguous rows of X voxels) and Z
+outermost so the volume shards/streams along Z.
 
 Voxel storage parity with the reference's 8-byte `Voxel{short tsdf; short
 weight; uchar3 rgb}` (device_types.hpp:51-56): TSDF is int16 fixed-point
 scaled by 32767 (device_utils.cuh:6-7,:57-64), weight int16 clamped to
 max_weight, color packed as 0x00RRGGBB in int32 (values <=
 0x00FFFFFF, so the sign bit is never set; int32 keeps the volume free of
-u32<->s32 bitcast_convert ops, which XLA:TPU materializes as full-volume
-copies around the fused switch — ~3.3 ms/frame at 512^3, r5 trace).
+u32<->s32 bitcast_convert ops).
 """
 
 from __future__ import annotations

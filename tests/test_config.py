@@ -7,20 +7,37 @@ from kinfu_tpu.config import KinFuParams
 
 
 def test_mode_validation_rejects_typos():
-    for field in ("icp_mode", "integrate_mode", "raycast_mode", "fused_mode"):
-        with pytest.raises(ValueError, match=field):
-            KinFuParams(**{field: "On"})
-        with pytest.raises(ValueError, match=field):
-            KinFuParams(**{field: "true"})
+    for bad in ("On", "true", "Hier"):
+        with pytest.raises(ValueError, match="raycast_mode"):
+            KinFuParams(raycast_mode=bad)
 
 
 def test_mode_validation_accepts_choices():
-    KinFuParams(
-        icp_mode="warped",
-        integrate_mode="gather",
-        raycast_mode="hier",
-        fused_mode="off",
-    )
+    for mode in ("auto", "hier", "step"):
+        assert KinFuParams(raycast_mode=mode).raycast_mode == mode
+
+
+@pytest.mark.parametrize(
+    "removed",
+    [
+        {"icp_mode": "gather"},
+        {"integrate_mode": "gather"},
+        {"fused_mode": "off"},
+        {"raycast_face": (640, 261.0)},
+    ],
+)
+def test_removed_options_are_rejected(removed):
+    """Options of the removed accelerator-specific kernels fail loudly,
+    both at construction and through replace()."""
+    with pytest.raises(TypeError):
+        KinFuParams(**removed)
+    with pytest.raises(TypeError):
+        KinFuParams().replace(**removed)
+
+
+def test_removed_warped_raycast_is_rejected():
+    with pytest.raises(ValueError, match="raycast_mode"):
+        KinFuParams(raycast_mode="warped")
 
 
 def test_derived_defaults_match_reference():

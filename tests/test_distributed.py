@@ -5,14 +5,12 @@ produces the same results as the single-device pipeline (the reference has
 no distributed mode at all; SURVEY.md section 2)."""
 
 import numpy as np
-import jax
 import jax.numpy as jnp
 import pytest
 
 from kinfu_tpu.config import KinFuParams
 from kinfu_tpu.data.synthetic import default_test_scene, make_translation_trajectory
 from kinfu_tpu.geometry.intrinsics import Intrinsics
-from kinfu_tpu.geometry.se3 import compose, identity_pose, inverse, pose_from_matrix
 from kinfu_tpu.parallel.mesh import make_mesh
 from kinfu_tpu.parallel.sharded import make_sharded_step_fn, shard_state
 from kinfu_tpu.pipeline.kinfu import init_state, make_step_fn
@@ -32,11 +30,6 @@ PARAMS = KinFuParams(
     raycast_mode="step",
 )
 
-pytestmark = pytest.mark.skipif(
-    jax.device_count() < 8, reason="needs 8 (virtual) devices"
-)
-
-
 def _run(step_fn, state, frames):
     outs = []
     for depth_raw, color in frames:
@@ -45,7 +38,7 @@ def _run(step_fn, state, frames):
     return state, outs
 
 
-def test_sharded_matches_single_device():
+def test_sharded_matches_single_device(devices8):
     scene = default_test_scene()
     traj = make_translation_trajectory(4, step=(0.004, 0.0, 0.006))
     frames = [scene.render_frame(T, INTR) for T in traj]
@@ -92,7 +85,7 @@ def test_sharded_matches_single_device():
     assert ((np.abs(sv[..., 2]) > 0) != (np.abs(dv[..., 2]) > 0)).mean() < 5e-3
 
 
-def test_sharded_tracking_failure_resets():
+def test_sharded_tracking_failure_resets(devices8):
     scene = default_test_scene()
     mesh = make_mesh(8)
     state = shard_state(init_state(PARAMS, INTR), mesh)
@@ -106,7 +99,7 @@ def test_sharded_tracking_failure_resets():
     assert int(np.asarray(jnp.sum(state.vol.weight.astype(jnp.int32)))) == 0
 
 
-def test_replica_sweep_matches_serial():
+def test_replica_sweep_matches_serial(devices8):
     """parallel/sweep.py: N sequences fanned across the replica mesh must
     produce the same trajectories as running each serially."""
     from kinfu_tpu.data.synthetic import make_orbit_trajectory
@@ -141,121 +134,17 @@ def test_replica_sweep_matches_serial():
         )
 
 
-def test_sharded_warped_kernels_match_single_device():
-    """The sharded path must run the SAME Pallas kernels as single-chip:
-    warped integrate (z-offset folded into the camera pose) and warped ICP
-    (row-shard + psum Gram finish). Raycast stays the grid-snapped march on
-    both sides (its warped unification is separate)."""
-    params = KinFuParams(
-        pyramid_height=1,
-        icp_iters=(3,),
-        volume_dims=(128, 128, 128),
-        volume_range=(3.0, 3.0, 3.0),
-        integrate_mode="warped",
-        icp_mode="warped",
-        raycast_mode="step",
-    )
+@pytest.mark.parametrize("n_devices", [2, 4])
+def test_sharded_step_matches_single_device_on_n_devices(n_devices, devices8):
+    """chip_smoke.py's four-card phase, rehearsed on virtual devices: the
+    Z-sharded plain step over an n-device mesh tracks the same poses as the
+    single-device step, and each device holds its own volume shard."""
+    import chip_smoke
+
     scene = default_test_scene()
     traj = make_translation_trajectory(3, step=(0.004, -0.003, 0.006))
     frames = [scene.render_frame(T, INTR) for T in traj]
-
-    single = make_step_fn(params, INTR, donate=False)
-    st_s = init_state(params, INTR)
-    st_s, outs_s = _run(single, st_s, frames)
-
-    mesh = make_mesh(8)
-    sharded = make_sharded_step_fn(params, INTR, mesh)
-    st_d = shard_state(init_state(params, INTR), mesh)
-    st_d, outs_d = _run(sharded, st_d, frames)
-
-    for os_, od in zip(outs_s, outs_d):
-        assert bool(od.tracking_ok) == bool(os_.tracking_ok)
-        np.testing.assert_allclose(
-            np.asarray(od.pose_matrix), np.asarray(os_.pose_matrix), atol=1e-4
-        )
-    np.testing.assert_allclose(
-        tsdf_to_float(jnp.asarray(st_d.vol.tsdf)),
-        tsdf_to_float(st_s.vol.tsdf),
-        atol=2e-3,
+    errs = chip_smoke.four_card_sharded(
+        PARAMS, INTR, frames, devices8[:n_devices], card="virtual CPU mesh"
     )
-
-
-_WARP_RAY_FNS = {}
-
-
-def _warp_ray_fns():
-    """One (single-device, sharded) jitted pair shared by the yaw cases —
-    the camera pose is a traced argument, so both orientations reuse one
-    trace each (interpret-mode lowering dominates; needs --dist loadfile)."""
-    if _WARP_RAY_FNS:
-        return _WARP_RAY_FNS["params"], _WARP_RAY_FNS["s"], _WARP_RAY_FNS["d"]
-    from functools import partial
-
-    from jax.experimental.shard_map import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    from kinfu_tpu.geometry.se3 import Pose
-    from kinfu_tpu.ops.pallas_raycast import raycast_warped
-    from kinfu_tpu.parallel.sharded import sharded_raycast_warped
-    from kinfu_tpu.volume.tsdf import TSDFVolume
-
-    params = KinFuParams(
-        pyramid_height=1, icp_iters=(3,), volume_dims=(128,) * 3,
-        volume_range=(3.0, 3.0, 3.0),
-    )
-
-    @jax.jit
-    def single(tsdf, R, t):
-        vol = TSDFVolume(tsdf=tsdf, weight=None, color=None)
-        return raycast_warped(vol, Pose(R, t), INTR, params, interpret=True)
-
-    mesh = make_mesh(8)
-    sharded = jax.jit(
-        shard_map(
-            partial(sharded_raycast_warped, intr=INTR, params=params,
-                    interpret=True),
-            mesh=mesh,
-            in_specs=(P("z"), Pose(P(), P())),
-            out_specs=(P(), P()),
-            check_rep=False,
-        )
-    )
-    _WARP_RAY_FNS.update(params=params, s=single, d=sharded)
-    return params, single, sharded
-
-
-def _sharded_warp_raycast_case(yaw_deg):
-    """sharded_raycast_warped vs single-device raycast_warped on the same
-    128^3 volume. yaw=0 exercises plane-sharded (+z) sweeps, yaw=90 the
-    row-sharded (+x/-x family) path."""
-    from kinfu_tpu.geometry.se3 import Pose, rodrigues
-    from kinfu_tpu.volume.tsdf import tsdf_to_fixed
-
-    params, single, sharded = _warp_ray_fns()
-    dim = 128
-    vs = params.voxel_size[0]
-    g = (np.arange(dim) * vs).astype(np.float32)
-    Z, Y, X = np.meshgrid(g, g, g, indexing="ij")
-    d = np.sqrt((X - 1.5) ** 2 + (Y - 1.5) ** 2 + (Z - 1.5) ** 2) - 0.6
-    tsdf = tsdf_to_fixed(jnp.asarray(np.clip(d / params.trunc_dist, -1, 1)))
-
-    R = rodrigues(jnp.array([0.0, np.deg2rad(yaw_deg), 0.0], jnp.float32))
-    t = jnp.asarray(
-        np.array([1.5, 1.5, 1.5], np.float32)
-        - 1.3 * np.asarray(R)[:, 2]  # 1.3 m back along the view direction
-    )
-
-    vm_s, nm_s = single(tsdf, R, t)
-    vm_d, nm_d = sharded(tsdf, Pose(R=R, t=t))
-
-    np.testing.assert_allclose(np.asarray(vm_d), np.asarray(vm_s), atol=1e-4)
-    np.testing.assert_allclose(np.asarray(nm_d), np.asarray(nm_s), atol=1e-4)
-    assert np.any(np.asarray(nm_s) != 0)
-
-
-def test_sharded_warped_raycast_plane_sharded():
-    _sharded_warp_raycast_case(0.0)
-
-
-def test_sharded_warped_raycast_row_sharded():
-    _sharded_warp_raycast_case(90.0)
+    assert len(errs) == 3

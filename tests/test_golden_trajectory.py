@@ -5,9 +5,8 @@ its only machine-checkable expected output (doc/poses.txt, SURVEY.md
 section 4). This repo's equivalents:
   - tests/golden/poses_cpu_orbit12_128.txt — CPU-runnable golden at
     128^3 / 2-level / 160x120 over an exact-GT synthetic orbit (this test)
-  - doc/golden_poses_*.txt — the production 512^3 / 3-level / 640x480
-    trajectory recorded on TPU hardware by tools/accuracy_run.py and scored
-    in ACCURACY.md
+  - the production 512^3 / 3-level / 640x480 run on the card, scored by
+    chip_smoke.py (phase 4) and recorded in ACCURACY.md
 
 A behavioural change to tracking or fusion shows up here as ATE drift
 against the recorded golden.

@@ -295,8 +295,8 @@ def test_loop_closure_corrects_drift():
 def test_closure_rebuild_realigns_map():
     """The post-closure map rebuild must move the GEOMETRY, not just the
     reported poses: translating every keyframe pose by T and rebuilding
-    must translate the extracted cloud by T (VERDICT r4: previously only
-    poses moved and the TSDF kept the drifted surface)."""
+    must translate the extracted cloud by T (an earlier version moved only
+    the poses and the TSDF kept the drifted surface)."""
     from kinfu_tpu.data.synthetic import default_test_scene
     from kinfu_tpu.mapping.loop_closure import LoopClosureConfig
     from kinfu_tpu.pipeline.session import KinFuSession

@@ -1,23 +1,14 @@
 """Automated sanitizer passes (SURVEY.md §5 "race detection / sanitizers").
 
 The reference compiles with `-G;-g` and nothing else (CMakeLists.txt:18).
-In a functional JAX framework the analogous bug classes are (a) indexing /
-numeric faults inside the traced step and (b) in-place aliasing of the
-Pallas kernels' IO (the donation/aliasing hazards SURVEY §5 calls out).
-These tests run both checks automatically on every suite run:
-
-  - `jax.experimental.checkify` instruments one full pipeline step (jnp
-    gather paths — Mosaic custom calls are outside checkify's reach, and
-    their parity suites + hardware probes cover them) with out-of-bounds
-    index and division checks;
-  - the fusion sweep runs with in-place aliasing ON and OFF and must be
-    bit-identical (the aliasing escape hatch KINFU_DISABLE_ALIAS toggles
-    the same flag in production).
+In a functional JAX framework the analogous bug class is indexing /
+numeric faults inside the traced step: `jax.experimental.checkify`
+instruments one full pipeline step with out-of-bounds index and division
+checks on every suite run.
 """
 
 import functools
 
-import numpy as np
 import jax
 import jax.numpy as jnp
 
@@ -35,10 +26,7 @@ def test_step_passes_checkify_index_and_div_checks():
 
     params = tiny_params(dim=32, levels=2).replace(
         icp_iters=(2, 2),
-        integrate_mode="gather",
         raycast_mode="step",
-        icp_mode="gather",
-        fused_mode="off",
     )
     scene = default_test_scene()
     frames = [
@@ -58,43 +46,3 @@ def test_step_passes_checkify_index_and_div_checks():
         )
         err.throw()  # raises on any OOB index / div fault
     assert bool(out.tracking_ok)
-
-
-def test_sweep_alias_on_off_bit_identical():
-    """The fusion sweep's in-place VMEM aliasing must not change results —
-    the per-kernel mirror of the KINFU_DISABLE_ALIAS production lever."""
-    from kinfu_tpu.geometry.se3 import compose, identity_pose, inverse, pose_from_matrix
-    from kinfu_tpu.ops.facewarp import FaceSpec, face_frames
-    from kinfu_tpu.ops.pallas_integrate import _sweep_face
-    from kinfu_tpu.volume.tsdf import create_volume
-
-    params = tiny_params(dim=128, levels=1)
-    spec = FaceSpec(size=256, focal=104.0, levels=6)
-    scene = default_test_scene()
-    depth_raw, color = scene.render_frame(np.eye(4, dtype=np.float32), INTR)
-    depth_m = jnp.asarray(depth_raw) * params.depth_scale
-    color = jnp.asarray(color)
-    vol_pose = pose_from_matrix(jnp.asarray(params.volume_pose))
-    vol2cam = compose(inverse(identity_pose()), vol_pose)
-    vol = create_volume(params.volume_dims)
-    fr = face_frames()[0]
-
-    outs = {}
-    for alias in (True, False):
-        outs[alias] = jax.jit(
-            functools.partial(
-                _sweep_face,
-                frame=fr,
-                depth_m=depth_m,
-                color_rgb=color,
-                vol2cam=vol2cam,
-                intr=INTR,
-                params=params,
-                spec=spec,
-                interpret=True,
-                alias=alias,
-            )
-        )(vol.tsdf, vol.weight, vol.color)
-    for a, b in zip(outs[True], outs[False]):
-        np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
-    assert int(np.asarray(outs[True][1]).sum()) > 0  # something fused

@@ -173,7 +173,7 @@ def test_extract_points_plane():
 
 
 def test_march_chunked_matches_march():
-    """The chunked TPU-throughput march must produce identical hits to the
+    """The chunked march must produce identical hits to the
     step-by-step reference march on the same sample grid."""
     from kinfu_tpu.volume.raycast import (
         camera_rays,
